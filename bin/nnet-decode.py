@@ -21,8 +21,6 @@ from lstm_ctc_tpu.cli import (
     init_from_config,
     log_invocation,
     make_shard_fn,
-    note_output_emitted,
-    run_with_backend_retry,
     str2bool,
 )
 from lstm_ctc_tpu.data import iterate_batches
@@ -42,7 +40,7 @@ def main(args):
     batcher = build_batcher(args.tfrecords_scp, config, args.batch_size,
                             need_labels=False)
     shard_fn, mesh = make_shard_fn()
-    config["mesh"] = mesh  # lets the model pick sharded Pallas kernels
+    config["mesh"] = mesh  # the CTC kernels run per shard on a mesh
 
     @jax.jit
     def forward(nnet_input, sequence_length):
@@ -66,7 +64,6 @@ def main(args):
             hyps = greedy_decode(log_probs[:len(batch.keys)],
                                  batch.sequence_length[:len(batch.keys)])
         for key, hyp in zip(batch.keys, hyps):
-            note_output_emitted()  # streamed record: unsafe to retry past
             writer.Write(key, np.asarray(hyp, np.int32))
             processed += 1
             if args.report_interval and processed % args.report_interval == 0:
@@ -96,4 +93,4 @@ if __name__ == "__main__":
                         default=16, help="inference batch size.")
     args = parser.parse_args()
     log_invocation()
-    run_with_backend_retry(lambda: main(args), what="nnet-decode")
+    main(args)

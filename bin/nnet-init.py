@@ -20,7 +20,6 @@ from lstm_ctc_tpu.cli import (
     init_from_config,
     log_invocation,
     make_shard_fn,
-    run_with_backend_retry,
     str2bool,
 )
 from lstm_ctc_tpu.data import iterate_batches
@@ -38,7 +37,7 @@ def main(args):
 
     batcher = build_batcher(args.tfrecords_scp, config, args.batch_size)
     shard_fn, mesh = make_shard_fn()
-    config["mesh"] = mesh  # lets the model pick sharded Pallas kernels
+    config["mesh"] = mesh  # the CTC kernels run per shard on a mesh
     eval_step = make_eval_step(config, with_logits=args.evaluate)
 
     run_validation_epoch(
@@ -81,4 +80,4 @@ if __name__ == "__main__":
                         help="progress report interval.")
     args = parser.parse_args()
     log_invocation()
-    run_with_backend_retry(lambda: main(args), what="nnet-init")
+    main(args)

@@ -11,8 +11,8 @@ per-epoch shuffle/dropout seed = iteration number; epoch input = the
 best checkpoint so far), while the per-process accelerator-runtime
 warmup the script loop pays ~2×/iteration is paid once.
 
-Intended for environments where process startup dominates (remote-TPU
-tunnels, degraded compile services); produces the same artifact tree as
+Intended for runs where per-process start-up and compilation dominate
+short epochs; produces the same artifact tree as
 train_oplr.sh (nnet.N checkpoints, nnet.N.done stats, final.nnet,
 metrics JSONL) and is resumable off the same .done markers — the
 equivalence is pinned by tests/test_train_loop_inproc.py, which runs
@@ -37,7 +37,6 @@ from lstm_ctc_tpu.cli import (
     init_from_config,
     log_invocation,
     make_shard_fn,
-    run_with_backend_retry,
     str2bool,
 )
 from lstm_ctc_tpu.data import iterate_batches
@@ -56,7 +55,7 @@ def stamp():
 
 def to_host(tree):
     """Pull a pytree to host numpy.  train_step donates its params/
-    opt_state/net_state buffers (deleted after the step on TPU), so the
+    opt_state/net_state buffers (deleted after the step on the device), so the
     retained best-so-far trees must live on host and be re-fed each
     epoch — otherwise the first rejected epoch reuses a deleted array."""
     return jax.tree.map(lambda x: np.asarray(x), tree)
@@ -294,4 +293,4 @@ if __name__ == "__main__":
     parser.add_argument("--report-interval", type=int, default=100)
     args = parser.parse_args()
     log_invocation()
-    run_with_backend_retry(lambda: main(args), what="nnet-train-loop")
+    main(args)

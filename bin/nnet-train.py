@@ -24,7 +24,6 @@ from lstm_ctc_tpu.cli import (
     init_from_config,
     log_invocation,
     make_shard_fn,
-    run_with_backend_retry,
     str2bool,
 )
 from lstm_ctc_tpu.data import iterate_batches
@@ -51,7 +50,7 @@ def main(args):
         # shard_map on a mesh (train/graph.compute_losses)
         config["packed_slots_rank_major"] = True
     shard_fn, mesh = make_shard_fn()
-    config["mesh"] = mesh  # lets the model pick sharded Pallas kernels
+    config["mesh"] = mesh  # the CTC kernels run per shard on a mesh
     init_opt, train_step = make_train_step(
         config,
         learn_rate=args.learn_rate,
@@ -132,4 +131,4 @@ if __name__ == "__main__":
                         help="capture a jax profiler trace for this epoch.")
     args = parser.parse_args()
     log_invocation()
-    run_with_backend_retry(lambda: main(args), what="nnet-train")
+    main(args)

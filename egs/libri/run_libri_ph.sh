@@ -38,7 +38,7 @@ num_experts=44
 moe_temp=20
 learn_rate=0.0004
 batch_size=64
-pack_factor=3    # pack N utterances/row with state resets (numerically equivalent: exact in f32, bf16-tolerance with the default store_dtype; ~+28% real frames/s); 1 = off
+pack_factor=3    # pack N utterances/row with state resets (numerically equivalent to unpacked: exact in f32); 1 = off
 optimizer=adam
 max_iter=30
 target_length_cutoff=3

@@ -40,8 +40,8 @@ profile=easy      # easy = saturated pipeline proof (~0% WER);
                   # --num-projects 8)
 gen_extra=""      # extra gen_data.py flags (e.g. "--freq-step 1.16")
 nj=2              # decode/record conversion fan-out
-compute_dtype=    # set to bfloat16 to run matmuls in bf16 (accuracy
-                  # gate for flipping the TPU default; docs/BENCHMARKS.md)
+compute_dtype=    # set to bfloat16 or float32 to pin the matmul operand
+                  # precision (the accelerator default is bfloat16)
 train_driver=script   # script = scripts/train_oplr.sh (one process per
                       # epoch, the reference protocol); inproc =
                       # bin/nnet-train-loop.py (same state machine in

@@ -48,7 +48,7 @@ num_experts=72
 moe_temp=10
 learn_rate=0.001
 batch_size=32
-pack_factor=3    # pack N utterances/row with state resets (numerically equivalent: exact in f32, bf16-tolerance with the default store_dtype; ~+28% real frames/s); 1 = off
+pack_factor=3    # pack N utterances/row with state resets (numerically equivalent to unpacked: exact in f32); 1 = off
 optimizer=adam
 max_iter=30
 sort_by_len=true

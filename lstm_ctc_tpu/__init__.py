@@ -1,4 +1,4 @@
-"""lstm_ctc_tpu — TPU-native LSTM-CTC speech recognition framework.
+"""lstm_ctc_tpu — LSTM-CTC speech recognition framework in JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of mobvoi/lstm_ctc:
 (Bi)LSTM-CTC acoustic model training with the high-rank mixture-of-softmaxes

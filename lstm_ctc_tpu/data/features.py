@@ -4,7 +4,7 @@ The reference delegates all featurization to external Kaldi C++ binaries
 (``compute-fbank-feats``, ``apply-cmvn``, ``add-deltas``, … — SURVEY §2.4);
 this module implements the same algorithms natively so the full recipe runs
 without Kaldi.  The numpy paths back the featbin-equivalent CLI tools; the
-``*_batched`` jax path is a jit-compiled stage for on-TPU preprocessing.
+``*_batched`` jax path is a jit-compiled stage for on-device preprocessing.
 
 Algorithm parity with Kaldi (src/feat/feature-window.{h,cc},
 feature-fbank.cc, mel-computations.cc):

@@ -1,7 +1,7 @@
 """Host input pipeline: splice/subsample + length-bucketed padded batches.
 
 The reference pads every batch to the longest utterance in it with tf.data's
-``padded_batch`` (reference nnet/pipeline.py:35-51), which on TPU would
+``padded_batch`` (reference nnet/pipeline.py:35-51), which under XLA would
 trigger one XLA recompilation per distinct batch shape.  Here utterances are
 assigned to a small, dataset-stable set of *length buckets*; every batch from
 a bucket has the same ``[B, T_bucket, D]`` / ``[B, U_bucket]`` shape, so the

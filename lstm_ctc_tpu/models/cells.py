@@ -6,10 +6,10 @@ output projection (``num_proj``), a forget-gate bias added at runtime, TF
 gate order (i, j, f, o), and ``dynamic_rnn`` masking — outputs are zero past
 ``sequence_length`` and the carried state freezes there.
 
-TPU-first structure: the input-to-gates projection for the *whole* sequence
-is one large ``[B·T, D] × [D, 4H]`` matmul (MXU-friendly, done outside the
-scan); only the recurrent ``[B, P] × [P, 4H]`` matmul and the elementwise
-gate math live inside ``lax.scan``.
+Structure: the input-to-gates projection for the *whole* sequence is one
+large ``[B·T, D] × [D, 4H]`` matmul (done outside the scan); only the
+recurrent ``[B, P] × [P, 4H]`` matmul and the elementwise gate math live
+inside ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -139,9 +139,9 @@ def bilstm_dual_scan(fw_params: Dict,
                      reset_mask=None):
     """Run the forward and backward cells of one BLSTM layer in a single
     scan.  The two directions are independent within a layer, so batching
-    them halves the number of sequential scan steps — the dominant cost on
-    TPU, where each recurrent matmul underfills the MXU at acoustic batch
-    sizes (measured ~1.5× per layer on v5e vs two separate scans).
+    them halves the number of sequential scan steps: each recurrent matmul
+    is tiny at acoustic batch sizes, so the step count, not the FLOPs,
+    sets the time.
 
     x is the layer input, x_rev its reverse_sequence (bilstm.py:112 trick);
     both use the same time mask since reversal keeps valid frames in the
@@ -158,8 +158,7 @@ def bilstm_dual_scan(fw_params: Dict,
 
     # [2, ...] stacked weights; direction is a batched matmul dimension.
     # With compute_dtype=bfloat16 the matmul operands are cast down while
-    # accumulation and the carried state stay float32 (standard TPU mixed
-    # precision; ~10% step-time win on v5e).
+    # accumulation and the carried state stay float32.
     cdt = compute_dtype or x.dtype
     wx = jnp.stack([fw_params["wx"], bw_params["wx"]]).astype(cdt)
     wh = jnp.stack([fw_params["wh"], bw_params["wh"]]).astype(cdt)
@@ -219,10 +218,9 @@ def bilstm_dual_scan(fw_params: Dict,
     init = (jnp.zeros((2, batch, num_units), x.dtype),
             jnp.zeros((2, batch, out_dim), x.dtype))
     # Full rematerialization of the step in the backward pass (recomputing
-    # gate math is cheaper than storing per-step residuals in HBM) plus
-    # 8-way loop unrolling (amortizes per-step loop overhead on the
-    # sequential recurrence): remat+unroll together ~30% step time on
-    # v5e; unroll 8 measured ~3% over 4, 16 regressed.
+    # gate math instead of storing per-step residuals) plus 8-way loop
+    # unrolling (amortizes per-step loop overhead on the sequential
+    # recurrence).  Both settings predate the GPU; re-sweep them there.
     (c_final, h_final), outputs = jax.lax.scan(
         jax.checkpoint(step), init, (gates_x, mask) + xs_extra, unroll=8)
     outputs = jnp.moveaxis(outputs, 0, 2)                     # [2, B, T, P]

@@ -22,6 +22,7 @@ moments live in a separate ``state`` pytree updated by the train step.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -29,129 +30,6 @@ import jax
 import jax.numpy as jnp
 
 from .cells import dropout, init_lstm_cell, lstm_scan, truncated_normal
-
-
-def _make_scan_fn(config, batch):
-    """Unidirectional scan dispatch, mirroring blstm: the fused Pallas
-    whole-sequence kernel on TPU (per-shard under shard_map on meshes),
-    the XLA scan on CPU / odd batches / replicated fallbacks."""
-    import functools
-
-    from .blstm import _compute_dtype, _fused_lstm_mode
-    compute_dtype = _compute_dtype(config)
-    mode = _fused_lstm_mode(config, batch)
-    if mode is None or batch % 2 != 0:
-        return functools.partial(lstm_scan, compute_dtype=compute_dtype)
-
-    import jax as _jax
-
-    from .blstm import _fused_store_dtype
-    interpret = _jax.default_backend() == "cpu"
-    store_dtype = _fused_store_dtype(config)
-    if mode == "sharded":
-        if (batch // config["mesh"].devices.size) % 2 != 0:
-            # per-shard batch must stay even
-            return functools.partial(lstm_scan,
-                                     compute_dtype=compute_dtype)
-        from ..ops.lstm_pallas import lstm_scan_sharded
-        return functools.partial(lstm_scan_sharded, config["mesh"],
-                                 compute_dtype=compute_dtype,
-                                 store_dtype=store_dtype,
-                                 interpret=interpret)
-    from ..ops.lstm_pallas import lstm_scan_fused
-    return functools.partial(lstm_scan_fused,
-                             compute_dtype=compute_dtype,
-                             store_dtype=store_dtype,
-                             interpret=interpret)
-def _stack_gate(config, params_list, batch):
-    """Shared dispatch gate for the wavefront stack paths.  Returns
-    (mode, compute_dtype, store_dtype, interpret) or None when the
-    per-layer path must be used (CPU/scan mode, non-uniform stack,
-    layer-0 residual, LSTM_CTC_TPU_LSTM_STACK=0)."""
-    import os
-
-    from .blstm import _compute_dtype, _fused_lstm_mode, \
-        _fused_store_dtype
-    if os.environ.get("LSTM_CTC_TPU_LSTM_STACK", "1") == "0":
-        return None
-    mode = _fused_lstm_mode(config, batch)
-    if mode is None:
-        return None
-    from ..ops.lstm_stack_pallas import stack_eligible
-    if not stack_eligible(params_list):
-        return None
-    return (mode, _compute_dtype(config), _fused_store_dtype(config),
-            jax.default_backend() == "cpu")
-
-
-def _bn_affine(bn_params_list, bn_state_list):
-    """Eval-mode batch norm as per-layer channel affines: _apply_bn with
-    running stats is x·a + b, a = scale·rsqrt(var+eps),
-    b = offset − mean·a."""
-    out = []
-    for p, s in zip(bn_params_list, bn_state_list):
-        inv = jax.lax.rsqrt(s["var"] + BN_EPS)
-        a = inv * p["scale"]
-        out.append((a, p["offset"] - s["mean"] * a))
-    return out
-
-
-def _stack_outputs(config, params_list, x, sequence_length,
-                   residual_flags, keep_prob=1.0, dropout_rng=None,
-                   affine=None):
-    """Whole-stack wavefront kernel (ops/lstm_stack_pallas): runs all L
-    unidirectional layers in one diagonal time loop, cutting the
-    sequential chain from T·L dependent recurrent matmuls to ~T steps
-    of L independent ones.  Inter-layer dropout runs in-kernel via a
-    hash mask (same keep-prob semantics as the XLA path, different
-    stream); eval-mode BN rides in as per-layer chain affines
-    (forward-only).  Returns outputs [B, T, P] or None when the
-    per-layer path must be used (see _stack_gate)."""
-    gate = _stack_gate(config, params_list, x.shape[0])
-    if gate is None:
-        return None
-    mode, cdt, sdt, interpret = gate
-    from ..ops.lstm_stack_pallas import lstm_stack_fused, \
-        lstm_stack_sharded
-    use_dropout = keep_prob < 1.0 and dropout_rng is not None
-    seed = jax.random.randint(
-        dropout_rng, (1,), -2 ** 31, 2 ** 31 - 1,
-        dtype=jnp.int32) if use_dropout else None
-    kp = keep_prob if use_dropout else 1.0
-    if mode == "sharded":
-        out, _ = lstm_stack_sharded(
-            config["mesh"], params_list, x, sequence_length, 1.0,
-            residual_flags=tuple(residual_flags), compute_dtype=cdt,
-            store_dtype=sdt, interpret=interpret,
-            keep_prob=kp, seed=seed, affine=affine)
-    else:
-        out, _ = lstm_stack_fused(
-            params_list, x, sequence_length, 1.0,
-            residual_flags=tuple(residual_flags), compute_dtype=cdt,
-            store_dtype=sdt, interpret=interpret,
-            keep_prob=kp, seed=seed, affine=affine)
-    return out
-
-
-def _stack_chunk(config, params_list, x, sequence_length, residual_flags,
-                 initial_states, affine=None):
-    """Streaming variant of _stack_outputs: chunk-carried (c, h) states
-    in and out (optionally with the eval-mode BN affine).  Returns
-    (outputs, [(c, h)] states) or None to fall back to the per-layer
-    scan loop."""
-    gate = _stack_gate(config, params_list, x.shape[0])
-    if gate is None or gate[0] != "direct":
-        return None    # streaming is single-device, batch 1
-    _, cdt, sdt, interpret = gate
-    from ..ops.lstm_stack_pallas import lstm_stack_fused
-    out, states = lstm_stack_fused(
-        params_list, x, sequence_length, 1.0,
-        residual_flags=tuple(residual_flags),
-        compute_dtype=cdt, store_dtype=sdt, interpret=interpret,
-        initial_states=list(initial_states), affine=affine)
-    return out, states
-
-
 from .moe import apply_moe, init_moe
 
 BN_MOMENTUM = 0.99
@@ -173,6 +51,11 @@ def _dims(config: Dict) -> Dict:
     }
     dims["output_dim"] = dims["num_projects"] or dims["num_neurons"]
     return dims
+
+
+def _scan_fn(config):
+    from .blstm import _compute_dtype
+    return functools.partial(lstm_scan, compute_dtype=_compute_dtype(config))
 
 
 def _init_bn(dim: int) -> Dict:
@@ -198,10 +81,8 @@ def _bn_fold_enabled() -> bool:
     tiny [D, 4H] weight rescale.  Residual adds recreate x̂ as an
     elementwise op XLA fuses into the add.  Semantically identical to
     the materializing path (same stats, same running-moment updates);
-    gradient/logit parity pinned by tests/test_models.py.  SHIPPED
-    DEFAULT ON (on-chip A/B won both interleaved reps, +1.9% best-of
-    on lstm_bn flagship shapes — docs/BENCHMARKS.md round 5); set the
-    env to 0 for the materializing path."""
+    gradient/logit parity pinned by tests/test_models.py.  Set the env
+    to 0 for the materializing path."""
     import os
     return os.environ.get("LSTM_CTC_TPU_BN_FOLD", "1") == "1"
 
@@ -299,41 +180,15 @@ def apply_lstm(params: Dict,
             params["bn_in"], state["bn_in"], x, train)
     res_flags = [not (i == 0 and dims["input_dim"] != dims["output_dim"])
                  for i in range(dims["num_layers"])]
-    stacked = None
-    if not dims["use_bn"]:
-        # dropout runs in-kernel (hash mask).  Split off a dedicated key
-        # so the in-kernel seed never aliases the MoE dropout key below.
-        # Split only once the gate confirms the wavefront path runs —
-        # otherwise the per-layer fallback would consume a different RNG
-        # stream than it does when the stack kernel is not even eligible.
-        stack_rng = None
-        if keep_prob < 1.0 and dropout_rng is not None \
-                and _stack_gate(config, params["layers"],
-                                x.shape[0]) is not None:
-            dropout_rng, stack_rng = jax.random.split(dropout_rng)
-        stacked = _stack_outputs(config, params["layers"], x,
-                                 sequence_length, res_flags,
-                                 keep_prob=keep_prob,
-                                 dropout_rng=stack_rng)
-    elif not train:
-        # train-mode BN needs whole-sequence batch statistics → the
-        # per-layer path; eval-mode BN (running stats) is a per-channel
-        # affine and folds into the wavefront kernel's chain values
-        stacked = _stack_outputs(
-            config, params["layers"], x, sequence_length, res_flags,
-            affine=_bn_affine(params["bn"], state["bn"]))
     head_affine = None
-    if stacked is not None:
-        x = stacked
-    elif bn_fold:
+    if bn_fold:
         # fold each BN's train-mode affine into the next layer's input
         # kernel (and the input BN into layer 0) — no normalized
         # [B, T, C] tensor is ever materialized between layers.  RNG
         # consumption order matches the materializing loop exactly.
-        x = nnet_input
         pending, new_state["bn_in"] = _bn_train_affine(
             params["bn_in"], state["bn_in"], x)
-        scan_fn = _make_scan_fn(config, x.shape[0])
+        scan_fn = _scan_fn(config)
         for i in range(dims["num_layers"]):
             cell = _fold_affine_into_cell(params["layers"][i], *pending)
             out, _ = scan_fn(cell, x, sequence_length, forget_bias=1.0)
@@ -349,12 +204,11 @@ def apply_lstm(params: Dict,
             x = out
         head_affine = pending          # last BN folds into the head
     else:
-        scan_fn = _make_scan_fn(config, x.shape[0])
+        scan_fn = _scan_fn(config)
         for i in range(dims["num_layers"]):
-            residual = res_flags[i]
             out, _ = scan_fn(params["layers"][i], x, sequence_length,
                              forget_bias=1.0)
-            if residual:
+            if res_flags[i]:
                 out = out + x              # ResidualWrapper, lstm.py:250-258
             if keep_prob < 1.0 and dropout_rng is not None:
                 dropout_rng, k = jax.random.split(dropout_rng)
@@ -367,9 +221,9 @@ def apply_lstm(params: Dict,
     batch, time_steps, _ = x.shape
     flat = x.reshape(batch * time_steps, dims["output_dim"])
     if head_affine is not None and dims["num_experts"] > 0:
-        # the MoE head has two matmul consumers (gate + experts) plus
-        # in-kernel dropout — materialize the final affine instead of
-        # folding (still saves every inter-layer materialization)
+        # the MoE head has two matmul consumers (gate + experts) and
+        # dropout — materialize the final affine instead of folding
+        # (still saves every inter-layer materialization)
         flat = head_affine[0] * flat + head_affine[1]
         head_affine = None
     if dims["num_experts"] > 0:
@@ -380,8 +234,7 @@ def apply_lstm(params: Dict,
         from .blstm import _compute_dtype
         y = apply_moe(params["moe"], flat, dims["num_experts"],
                       dims["moe_temp"], keep_prob, k_moe,
-                      compute_dtype=_compute_dtype(config),
-                      mesh=config.get("mesh"), batch_rows=batch)
+                      compute_dtype=_compute_dtype(config))
     else:
         w_head, b_head = params["head"]["w"], params["head"]["b"]
         if head_affine is not None:
@@ -420,15 +273,9 @@ def apply_cudnnlstm(params: Dict,
                     dropout_rng=None):
     dims = _dims(config)
     x = nnet_input
-    stacked = _stack_outputs(config, params["layers"], x,
-                             sequence_length,
-                             [False] * dims["num_layers"])
-    if stacked is not None:
-        x = stacked
-    else:
-        scan_fn = _make_scan_fn(config, x.shape[0])
-        for cell in params["layers"]:
-            x, _ = scan_fn(cell, x, sequence_length, forget_bias=1.0)
+    scan_fn = _scan_fn(config)
+    for cell in params["layers"]:
+        x, _ = scan_fn(cell, x, sequence_length, forget_bias=1.0)
     batch, time_steps, _ = x.shape
     flat = x.reshape(batch * time_steps, dims["num_neurons"])
     y = flat @ params["head"]["w"] + params["head"]["b"]

@@ -75,32 +75,20 @@ class StreamingSession:
             i == 0 and dims["input_dim"] != dims["output_dim"])
             for i in range(dims["num_layers"])]
         from .blstm import _compute_dtype
-        from .lstm import _bn_affine, _stack_chunk
 
-        # whole-stack wavefront kernel with chunk-carried states;
-        # eval-mode BN folds in as per-layer chain affines
-        affine = _bn_affine(params["bn"], net_state["bn"]) \
-            if use_bn else None
-        stacked = _stack_chunk(config, params["layers"], out,
-                               seq_len, res_flags, states,
-                               affine=affine)
-        if stacked is not None:
-            out, new_states = stacked
-        else:
-            for i, cell in enumerate(params["layers"]):
-                residual = res_flags[i]
-                layer_out, state = lstm_scan(
-                    cell, out, seq_len, forget_bias=1.0,
-                    initial_state=states[i],
-                    compute_dtype=_compute_dtype(config))
-                if residual:
-                    layer_out = layer_out + out
-                if use_bn:
-                    layer_out, _ = _apply_bn(params["bn"][i],
-                                             net_state["bn"][i],
-                                             layer_out, train=False)
-                new_states.append(state)
-                out = layer_out
+        for i, cell in enumerate(params["layers"]):
+            layer_out, state = lstm_scan(
+                cell, out, seq_len, forget_bias=1.0,
+                initial_state=states[i],
+                compute_dtype=_compute_dtype(config))
+            if res_flags[i]:
+                layer_out = layer_out + out
+            if use_bn:
+                layer_out, _ = _apply_bn(params["bn"][i],
+                                         net_state["bn"][i],
+                                         layer_out, train=False)
+            new_states.append(state)
+            out = layer_out
         flat = out.reshape(-1, out.shape[-1])
         if dims["num_experts"] > 0:
             y = apply_moe(params["moe"], flat, dims["num_experts"],

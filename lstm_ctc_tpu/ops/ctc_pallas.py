@@ -1,15 +1,22 @@
-"""Pallas TPU kernels for the CTC forward/backward DP.
+"""Pallas (Triton route) kernels for the CTC alpha/beta recursions.
 
-The XLA ``lax.scan`` versions in ops/ctc.py spend most of their time on
-per-step loop overhead: each step is a tiny banded [B, 2U+1] update (pure
-VPU work, microseconds of math).  These kernels run the *entire* time loop
-inside one Pallas program with every buffer resident in VMEM, processing
-time in blocks carried through scratch across a sequential grid — the
-same recurrence, no per-step dispatch.
+The ``lax.scan`` recursions in ops/ctc.py run 2·T sequential steps of a
+tiny banded [B, S] update (S = 2U+1), so on a GPU each step costs a few
+kernel launches of microseconds of work.  These kernels run the whole time
+loop inside one program per utterance: the grid is over batch rows (rows
+are independent, so programs need not run in any order), and the T loop
+is a ``fori_loop`` inside the program.
 
-Used by ops/ctc.py when the lattice fits the VMEM budget (typical acoustic
-shapes); the scan implementation remains the fallback and the reference
-for the parity tests.  Interpret mode makes the kernels testable on CPU.
+The recursion needs the previous step's row shifted by one and two
+lattice positions.  Triton has no shuffle across the lanes of a block, so
+each step reads the previous row back from the output buffer at offsets
+s, s∓1 and s∓2 (masked at the edges), after a block-wide barrier that
+makes the previous step's store visible to every thread of the program.
+
+Buffers are passed flat, with two leading and one trailing row of
+padding, so every shifted window is a plain in-bounds slice — interpret
+mode (which clamps out-of-range slices) then computes exactly what the
+compiled kernel does.
 """
 
 from __future__ import annotations
@@ -19,12 +26,26 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 NEG_INF = -1e30
 
-# time steps per grid step: amortizes grid overhead, bounds VMEM blocks
-TIME_BLOCK = 64
+# Widest lattice row (S = 2U+1, padded to a power of two) a program keeps
+# in registers; wider rows take the scan (ops/ctc.py).
+MAX_LATTICE = 4096
+
+
+def lattice_block(ext_len: int) -> int:
+    """Power-of-two block that holds one lattice row."""
+    return pl.next_power_of_2(ext_len)
+
+
+def fits_kernel(ext_len: int) -> bool:
+    return lattice_block(ext_len) <= MAX_LATTICE
+
+
+def _num_warps(block: int) -> int:
+    return max(1, min(8, block // 128))
 
 
 def _log3(a, b, c):
@@ -33,182 +54,128 @@ def _log3(a, b, c):
     return jnp.where(m <= NEG_INF * 0.5, NEG_INF, out)
 
 
-def _shift_right(x, amount):
-    pad = jnp.full(x.shape[:-1] + (amount,), NEG_INF, x.dtype)
-    return jnp.concatenate([pad, x[..., :-amount]], axis=-1)
+def _row(ref, start, block, mask):
+    return plgpu.load(ref.at[pl.ds(start, block)], mask=mask, other=NEG_INF)
 
 
-def _shift_left(x, amount):
-    pad = jnp.full(x.shape[:-1] + (amount,), NEG_INF, x.dtype)
-    return jnp.concatenate([x[..., amount:], pad], axis=-1)
+def _alpha_kernel(lp_ref, len_ref, valid_ref, skip_ref, init_ref, out_ref,
+                  *, max_t, batch, ext_len, block, interpret):
+    b = pl.program_id(0)
+    s = jnp.arange(block)
+    in_row = s < ext_len
+    row0 = PAD + b * ext_len
+    valid = plgpu.load(valid_ref.at[pl.ds(b * ext_len, block)],
+                       mask=in_row, other=0) > 0
+    can_skip = plgpu.load(skip_ref.at[pl.ds(b * ext_len, block)],
+                          mask=in_row, other=0) > 0
+    seq_len = len_ref[b]
+    alpha0 = _row(init_ref, b * ext_len, block, in_row)
+    plgpu.store(out_ref.at[pl.ds(row0, block)], alpha0, mask=in_row)
+
+    def step(t, carry):
+        if not interpret:
+            plgpu.debug_barrier()     # previous row stored by all threads
+        prev = PAD + ((t - 1) * batch + b) * ext_len
+        cur = PAD + (t * batch + b) * ext_len
+        alpha = _row(out_ref, prev, block, in_row)
+        alpha1 = _row(out_ref, prev - 1, block, in_row & (s >= 1))
+        alpha2 = _row(out_ref, prev - 2, block, in_row & (s >= 2) & can_skip)
+        lp = _row(lp_ref, cur - PAD, block, in_row)
+        new = jnp.where(valid, _log3(alpha, alpha1, alpha2) + lp, NEG_INF)
+        new = jnp.where(t < seq_len, new, alpha)
+        plgpu.store(out_ref.at[pl.ds(cur, block)], new, mask=in_row)
+        return carry
+
+    jax.lax.fori_loop(1, max_t, step, 0)
 
 
-def _alpha_kernel(lp_ref, mask_ref, valid_ref, skip_ref, init_ref,
-                  alpha_out_ref, carry_ref):
-    """One (batch block, time block) tile of the alpha recursion.
+def _beta_kernel(lp_ref, len_ref, valid_ref, skip_ref, final_ref, out_ref,
+                 *, max_t, batch, ext_len, block, interpret):
+    b = pl.program_id(0)
+    s = jnp.arange(block)
+    in_row = s < ext_len
+    valid = plgpu.load(valid_ref.at[pl.ds(b * ext_len, block)],
+                       mask=in_row, other=0) > 0
+    skip_from = plgpu.load(skip_ref.at[pl.ds(b * ext_len, block)],
+                           mask=in_row, other=0) > 0
+    final = plgpu.load(final_ref.at[pl.ds(b * ext_len, block)],
+                       mask=in_row, other=0) > 0
+    seq_len = len_ref[b]
 
-    Grid is (batch blocks, time blocks) with time innermost: each batch
-    block runs its full time recursion sequentially with the carry in
-    scratch, re-initialized when the time index wraps to 0."""
-    blk = pl.program_id(1)
+    def step(i, carry):
+        t = max_t - 1 - i
+        if not interpret:
+            plgpu.debug_barrier()     # next row stored by all threads
+        cur = PAD + (t * batch + b) * ext_len
+        nxt = PAD + ((t + 1) * batch + b) * ext_len
+        has_next = t + 1 < max_t
+        beta = _row(out_ref, nxt, block, in_row & has_next)
+        beta1 = _row(out_ref, nxt + 1, block,
+                     has_next & (s + 1 < ext_len))
+        beta2 = _row(out_ref, nxt + 2, block,
+                     has_next & (s + 2 < ext_len) & skip_from)
+        lp = _row(lp_ref, cur - PAD, block, in_row)
+        new = jnp.where(valid, _log3(beta, beta1, beta2) + lp, NEG_INF)
+        init = jnp.where(final & valid, lp, NEG_INF)
+        new = jnp.where(t == seq_len - 1, init, new)
+        new = jnp.where(t < seq_len, new, beta)
+        plgpu.store(out_ref.at[pl.ds(cur, block)], new, mask=in_row)
+        return carry
 
-    @pl.when(blk == 0)
-    def _():
-        carry_ref[:] = init_ref[:]
-
-    valid = valid_ref[:] > 0.5
-    can_skip = skip_ref[:] > 0.5
-
-    def body(tt, alpha):
-        # global step index: blk*time_block + tt; step 0 is the init row
-        is_first = jnp.logical_and(blk == 0, tt == 0)
-        summed = _log3(alpha, _shift_right(alpha, 1),
-                       jnp.where(can_skip, _shift_right(alpha, 2),
-                                 NEG_INF))
-        new_alpha = jnp.where(valid, summed + lp_ref[tt], NEG_INF)
-        alive = mask_ref[tt] > 0.5                   # [B, 1]
-        new_alpha = jnp.where(alive, new_alpha, alpha)
-        new_alpha = jnp.where(is_first, alpha, new_alpha)
-        alpha_out_ref[tt] = new_alpha
-        return new_alpha
-
-    carry_ref[:] = jax.lax.fori_loop(0, lp_ref.shape[0], body, carry_ref[:])
-
-
-def _beta_kernel(lp_ref, mask_ref, islast_ref, valid_ref, skipfrom_ref,
-                 final_ref, beta_out_ref, carry_ref):
-    """One (batch block, time block) tile of the beta recursion over
-    time-reversed inputs; same grid layout as ``_alpha_kernel``."""
-    blk = pl.program_id(1)
-
-    @pl.when(blk == 0)
-    def _():
-        carry_ref[:] = jnp.full_like(carry_ref, NEG_INF)
-
-    valid = valid_ref[:] > 0.5
-    skip_from = skipfrom_ref[:] > 0.5
-    final_mask = final_ref[:] > 0.5
-
-    def body(tt, beta):
-        lp = lp_ref[tt]
-        init = jnp.where(jnp.logical_and(final_mask, valid), lp, NEG_INF)
-        moved = _log3(beta, _shift_left(beta, 1),
-                      jnp.where(skip_from, _shift_left(beta, 2), NEG_INF))
-        new_beta = jnp.where(valid, moved + lp, NEG_INF)
-        is_last = islast_ref[tt] > 0.5               # [B, 1]
-        new_beta = jnp.where(is_last, init, new_beta)
-        alive = mask_ref[tt] > 0.5
-        new_beta = jnp.where(alive, new_beta, beta)
-        beta_out_ref[tt] = new_beta
-        return new_beta
-
-    carry_ref[:] = jax.lax.fori_loop(0, lp_ref.shape[0], body, carry_ref[:])
+    jax.lax.fori_loop(0, max_t, step, 0)
 
 
-def _pad_axis(x, padded, axis):
-    pad = padded - x.shape[axis]
-    if pad == 0:
-        return x
-    shape = list(x.shape)
-    shape[axis] = pad
-    return jnp.concatenate([x, jnp.zeros(shape, x.dtype)], axis=axis)
+# leading padding of the flat output: room for the s-1 / s-2 windows
+PAD = 2
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("interpret", "time_block",
-                                    "batch_block"))
-def alpha_pallas(lp_ext, time_mask, valid, can_skip, alpha0,
-                 interpret=False, time_block=TIME_BLOCK,
-                 batch_block=None):
-    """lp_ext [T,B,S], time_mask [T,B], valid/can_skip [B,S], alpha0 [B,S]
-    → alpha_all [T,B,S] (alpha at every step; row 0 == alpha0).
+def _flat(x, trailing):
+    """Flatten and append ``trailing`` zeros so that a block-wide window
+    starting at any row stays inside the buffer."""
+    flat = x.reshape(-1)
+    return jnp.concatenate([flat, jnp.zeros((trailing,), flat.dtype)])
 
-    ``batch_block`` tiles the batch axis so large-B lattices still fit
-    VMEM; padded rows carry valid=0 and are sliced away."""
+
+def _run(kernel, lp_ext, sequence_length, rows, interpret):
     max_t, batch, ext_len = lp_ext.shape
-    if batch_block is None or batch_block > batch:
-        batch_block = batch
-    padded_t = -(-max_t // time_block) * time_block
-    padded_b = -(-batch // batch_block) * batch_block
-    lp = _pad_axis(_pad_axis(lp_ext, padded_t, 0), padded_b, 1)
-    mask = _pad_axis(_pad_axis(time_mask.astype(jnp.float32), padded_t, 0),
-                     padded_b, 1)[..., None]
-    valid_f = _pad_axis(valid.astype(jnp.float32), padded_b, 0)
-    skip_f = _pad_axis(can_skip.astype(jnp.float32), padded_b, 0)
-    alpha0_p = _pad_axis(alpha0, padded_b, 0)
+    block = lattice_block(ext_len)
+    out_len = PAD + max_t * batch * ext_len + block
+    body = functools.partial(kernel, max_t=max_t, batch=batch,
+                             ext_len=ext_len, block=block,
+                             interpret=interpret)
     out = pl.pallas_call(
-        _alpha_kernel,
-        grid=(padded_b // batch_block, padded_t // time_block),
-        in_specs=[
-            pl.BlockSpec((time_block, batch_block, ext_len),
-                         lambda b, t: (t, b, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((time_block, batch_block, 1),
-                         lambda b, t: (t, b, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((batch_block, ext_len), lambda b, t: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((batch_block, ext_len), lambda b, t: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((batch_block, ext_len), lambda b, t: (b, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((time_block, batch_block, ext_len),
-                               lambda b, t: (t, b, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((padded_t, padded_b, ext_len),
-                                       jnp.float32),
-        scratch_shapes=[pltpu.VMEM((batch_block, ext_len), jnp.float32)],
+        body,
+        grid=(batch,),
+        out_shape=jax.ShapeDtypeStruct((out_len,), jnp.float32),
+        compiler_params=plgpu.CompilerParams(num_warps=_num_warps(block),
+                                             num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(lp, mask, valid_f, skip_f, alpha0_p)
-    return out[:max_t, :batch]
+        name=kernel.__name__.strip("_"),
+    )(_flat(lp_ext.astype(jnp.float32), block),
+      sequence_length.astype(jnp.int32),
+      *[_flat(r, block) for r in rows])
+    return out[PAD:PAD + max_t * batch * ext_len].reshape(
+        max_t, batch, ext_len)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("interpret", "time_block",
-                                    "batch_block"))
-def beta_pallas(lp_ext, time_mask, is_last, valid, skip_from, final_mask,
-                interpret=False, time_block=TIME_BLOCK,
-                batch_block=None):
-    """Reverse-time beta' recursion (emission included); returns
-    beta_all [T,B,S] in forward time order."""
-    max_t, batch, ext_len = lp_ext.shape
-    if batch_block is None or batch_block > batch:
-        batch_block = batch
-    padded_t = -(-max_t // time_block) * time_block
-    padded_b = -(-batch // batch_block) * batch_block
-    # reverse time, pad at the (now trailing) start
-    lp = _pad_axis(_pad_axis(lp_ext[::-1], padded_t, 0), padded_b, 1)
-    mask = _pad_axis(
-        _pad_axis(time_mask[::-1].astype(jnp.float32), padded_t, 0),
-        padded_b, 1)[..., None]
-    last = _pad_axis(
-        _pad_axis(is_last[::-1].astype(jnp.float32), padded_t, 0),
-        padded_b, 1)[..., None]
-    valid_f = _pad_axis(valid.astype(jnp.float32), padded_b, 0)
-    skipf_f = _pad_axis(skip_from.astype(jnp.float32), padded_b, 0)
-    final_f = _pad_axis(final_mask.astype(jnp.float32), padded_b, 0)
-    out = pl.pallas_call(
-        _beta_kernel,
-        grid=(padded_b // batch_block, padded_t // time_block),
-        in_specs=[
-            pl.BlockSpec((time_block, batch_block, ext_len),
-                         lambda b, t: (t, b, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((time_block, batch_block, 1),
-                         lambda b, t: (t, b, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((time_block, batch_block, 1),
-                         lambda b, t: (t, b, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((batch_block, ext_len), lambda b, t: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((batch_block, ext_len), lambda b, t: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((batch_block, ext_len), lambda b, t: (b, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((time_block, batch_block, ext_len),
-                               lambda b, t: (t, b, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((padded_t, padded_b, ext_len),
-                                       jnp.float32),
-        scratch_shapes=[pltpu.VMEM((batch_block, ext_len), jnp.float32)],
-        interpret=interpret,
-    )(lp, mask, last, valid_f, skipf_f, final_f)
-    return out[:max_t, :batch][::-1]
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def alpha_pallas(lp_ext, sequence_length, valid, can_skip, alpha0,
+                 interpret=False):
+    """lp_ext [T,B,S], sequence_length [B], valid/can_skip [B,S] bool,
+    alpha0 [B,S] → alpha_all [T,B,S] (row 0 == alpha0; rows past a
+    sequence's end repeat its last alpha)."""
+    rows = (valid.astype(jnp.int32), can_skip.astype(jnp.int32),
+            alpha0.astype(jnp.float32))
+    return _run(_alpha_kernel, lp_ext, sequence_length, rows, interpret)
+
+
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def beta_pallas(lp_ext, sequence_length, valid, skip_from, final_mask,
+                interpret=False):
+    """Reverse-time beta' recursion (emission included) → beta_all
+    [T,B,S] in forward time order.  ``skip_from`` marks s whose s+2
+    transition is allowed; ``final_mask`` the two end states."""
+    rows = (valid.astype(jnp.int32), skip_from.astype(jnp.int32),
+            final_mask.astype(jnp.int32))
+    return _run(_beta_kernel, lp_ext, sequence_length, rows, interpret)

@@ -3,7 +3,7 @@
 The reference has no in-framework distributed training at all (one process,
 one GPU; SURVEY §2.5) — here data parallelism is first-class: a 1-D
 ``data`` mesh over all local devices, batches sharded on the batch axis,
-parameters replicated.  XLA inserts the gradient all-reduce over ICI when
+parameters replicated.  XLA inserts the gradient all-reduce (NCCL on GPUs) when
 the jitted train step consumes sharded batches and produces replicated
 parameter updates — no explicit collectives needed at this scale
 (~10-30M-param models, DP-only; matching the reference's capability set

@@ -44,7 +44,7 @@ def _warn_flat_packed_gather(n_slots: int, num_rows: int,
     """One-time trace-time notice when a packed batch on a multi-device
     mesh takes the layout-agnostic flat gather: correct, but GSPMD
     replicates the [B,T,V] logits to serve arbitrary [B·T] indices —
-    exactly the pod-scale pathology the row-batched gather exists to
+    exactly the multi-device pathology the row-batched gather exists to
     avoid (mirrors ops/ctc._warn_scan_fallback)."""
     global _warned_flat_packed_gather
     if not _warned_flat_packed_gather:
@@ -105,8 +105,7 @@ def ctc_tiered_enabled(config: Dict) -> bool:
     or ``ctc_tiered_slots`` in config).  The packed slot layout is always
     rank-major (data/pipeline), so the flag is resolved here, where the
     gather is built, from config/env alone — no batcher-side mutation.
-    The tier gather measured as a wash on v5e (docs/BENCHMARKS.md round
-    3), so the simpler full-width view is the shipped default."""
+    The simpler full-width view is the shipped default."""
     import os
     raw = os.environ.get("LSTM_CTC_TPU_CTC_TIERED", "") \
         or str(config.get("ctc_tiered_slots", "") or "")
@@ -190,7 +189,7 @@ def compute_losses(params, net_state, batch: Dict, config: Dict,
         # the batch axis as a gather batch dim — a form GSPMD partitions
         # on a batch-sharded mesh (a flat [B·T] gather with arbitrary
         # indices forced an all-gather of the [B,T,V] logits on real
-        # pods; docs/ROADMAP.md round-4 pod-scale note, now closed).
+        # meshes).
         # Indices are rebased row-relative; dummy slots (zero-length ⇒
         # zero loss/grad) default to flat index 0 and clip to in-row.
         elif ctc_tiered_enabled(config) and pf >= 2:

@@ -1,7 +1,6 @@
-"""scripts/ab_train_step.py — the on-chip env-variant A/B harness must
-keep working on CPU with tiny shapes (it is the measurement instrument
-behind every shipped-default decision in docs/BENCHMARKS.md, so a
-harness regression would silently invalidate the next chip session)."""
+"""scripts/ab_train_step.py — the env-variant A/B harness for the card
+must keep working on CPU with tiny shapes, so a harness regression is
+caught before it spoils a run on the card."""
 
 import json
 import os

@@ -1,11 +1,14 @@
-"""bench.py --smoke: every benchmark row must execute and emit valid
-JSON on CPU with tiny shapes, so a bench.py regression is caught in CI
-instead of by the driver's one-shot on-chip recording."""
+"""bench.py: --smoke runs every benchmark row on CPU with tiny shapes and
+emits valid JSON (MFU null), so a bench.py regression is caught before a
+run on the card; without --smoke it refuses a host with no GPU; the peak
+table is keyed by the exact device kind."""
 
 import json
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -13,7 +16,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_bench_smoke_emits_full_json():
     env = dict(os.environ)
     env.update(JAX_PLATFORMS="cpu",
-               LSTM_CTC_TPU_LSTM_IMPL="scan",
                LSTM_CTC_TPU_CTC_IMPL="scan")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "bench.py"), "--smoke"],
@@ -29,6 +31,10 @@ def test_bench_smoke_emits_full_json():
     assert data["metric"] == "train_frames_per_sec_per_chip"
     assert data["value"] > 0
     assert data["forward_frames_per_sec"] > 0
+    # the CPU tier has no peak to divide by
+    assert data["mfu"] is None and data["mfu_peak_note"] is None
+    assert all(row.get("mfu") is None for row in data["configs"])
+    assert data["device"]["platform"] == "cpu"
     labels = {row["config"] for row in data["configs"]}
     assert {"flagship_b32_t384", "flagship_b64_t384",
             "recipe_packed_pf3_b32", "lstm_b32_t384",
@@ -47,13 +53,12 @@ def test_bench_smoke_emits_full_json():
 def test_bench_smoke_mesh_row_on_multi_device():
     """With >1 device visible, the bench must add the DP-mesh row (the
     sharded train step over all local devices) — exercised here on a
-    forced 8-device CPU mesh; a real pod picks it up with no change."""
+    forced 8-device CPU mesh."""
     env = dict(os.environ)
     xla_flags = env.get("XLA_FLAGS", "")
     env.update(JAX_PLATFORMS="cpu",
                XLA_FLAGS=(xla_flags
                           + " --xla_force_host_platform_device_count=8"),
-               LSTM_CTC_TPU_LSTM_IMPL="scan",
                LSTM_CTC_TPU_CTC_IMPL="scan")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "bench.py"), "--smoke"],
@@ -76,7 +81,6 @@ def test_bench_deadline_degrades_to_fewer_rows():
     skipped — never rc=124 with nothing emitted."""
     env = dict(os.environ)
     env.update(JAX_PLATFORMS="cpu",
-               LSTM_CTC_TPU_LSTM_IMPL="scan",
                LSTM_CTC_TPU_CTC_IMPL="scan",
                LSTM_CTC_TPU_BENCH_DEADLINE="0")
     r = subprocess.run(
@@ -89,22 +93,42 @@ def test_bench_deadline_degrades_to_fewer_rows():
     assert skipped, data["configs"]
 
 
-def test_probe_backend_bounded_on_hang(monkeypatch):
-    """The probe must convert a backend-init hang into a bounded failure
-    (the BENCH_r03 rc=124 mode) and a backend answer into success."""
-    import subprocess as sp
+def test_bench_refuses_a_host_without_gpu():
+    """Without --smoke the bench measures the card or nothing: on CPU it
+    exits non-zero and prints no result line."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    r = subprocess.run(
+        [sys.executable, os.path.join(REPO, "bench.py")],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    assert r.returncode != 0
+    assert "no GPU" in r.stderr
+    assert not r.stdout.strip()
 
+
+def _bench():
     sys.path.insert(0, REPO)
     import bench
+    return bench
 
-    calls = {"n": 0}
 
-    def fake_hang(*a, **kw):
-        calls["n"] += 1
-        raise sp.TimeoutExpired(cmd=a[0], timeout=kw.get("timeout"))
+def test_peak_table_knows_the_h100():
+    bench = _bench()
+    assert bench.peak_bf16_flops("NVIDIA H100 80GB HBM3") == 989e12
+    assert "data sheet" in bench.PEAK_BF16_FLOPS["NVIDIA H100 80GB HBM3"][1]
 
-    # _probe_backend does ``import subprocess`` locally, so patching the
-    # module attribute covers it
-    monkeypatch.setattr(sp, "run", fake_hang)
-    ok, msg = bench._probe_backend(attempts=2, deadline_s=1, sleep_s=0)
-    assert not ok and "timed out" in msg and calls["n"] == 2
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA H100 PCIe",
+                                  "NVIDIA A100-SXM4-80GB", ""])
+def test_peak_table_refuses_an_unknown_kind(kind):
+    with pytest.raises(KeyError, match="no bf16 peak"):
+        _bench().peak_bf16_flops(kind)
+
+
+def test_power_limit_is_none_without_nvidia_smi(monkeypatch):
+    import subprocess as sp
+
+    def missing(*a, **kw):
+        raise FileNotFoundError("nvidia-smi")
+
+    monkeypatch.setattr(sp, "run", missing)
+    assert _bench().gpu_name_and_power_limit() is None

@@ -239,9 +239,10 @@ def test_compute_dtype_bfloat16_config_plumbing():
 
 def test_compute_dtype_default_resolution(monkeypatch):
     """AUTO default: f32 on the CPU backend (this wheel cannot execute
-    bf16 dots), bf16 on accelerators — gated on the synthetic recipe
-    reaching 0.0% WER under bf16 (docs/BENCHMARKS.md).  Explicit config
-    and the env var override both directions."""
+    bf16 x bf16 → f32 dots), bf16 on accelerators — gated on the
+    synthetic recipe's accuracy under bf16 (egs/synthetic/
+    RESULT_PARITY.md).  Explicit config and the env var override both
+    directions."""
     from lstm_ctc_tpu.models.blstm import _compute_dtype
 
     monkeypatch.delenv("LSTM_CTC_TPU_COMPUTE_DTYPE", raising=False)
@@ -257,7 +258,7 @@ def test_compute_dtype_default_resolution(monkeypatch):
 
 def test_compute_dtype_bfloat16_unidirectional_plumbing():
     """The config knob must reach the unidirectional families' cell
-    matmuls too (lstm._make_scan_fn partials) — trace-level, as above."""
+    matmuls too (lstm._scan_fn partials) — trace-level, as above."""
     config = dict(WSJ_LIKE_CONFIG, nnet_type="lstm", num_experts=0,
                   dropout_rate=1.0, compute_dtype="bfloat16")
     params, state = init_model(jax.random.PRNGKey(0), config)
@@ -325,47 +326,6 @@ def test_dropout_train_vs_eval():
     tr2, _, _, _ = apply_model(params, state, x, seq, config, train=True,
                                dropout_rng=jax.random.PRNGKey(2))
     assert not np.allclose(np.asarray(tr1), np.asarray(tr2))
-
-
-def test_lstm_bn_training_fused_per_layer_matches_scan(monkeypatch):
-    """Training-mode BN needs whole-sequence batch statistics, so the
-    lstm+bn family runs the PER-LAYER path — which on TPU still
-    dispatches the fused per-layer whole-sequence kernel
-    (models/lstm._make_scan_fn), NOT the plain XLA scan.  The fused
-    kernel composed with train-mode BN must match the scan path:
-    logits, running moments, and parameter gradients."""
-    config = dict(WSJ_LIKE_CONFIG, nnet_type="lstm", use_bn=True,
-                  dropout_rate=1.0)
-    params, state = init_model(jax.random.PRNGKey(0), config)
-    rs = np.random.RandomState(3)
-    x = jnp.asarray(rs.randn(4, 12, 12), jnp.float32)   # even batch
-    seq = jnp.array([12, 12, 9, 5])
-
-    def run(impl):
-        monkeypatch.setenv("LSTM_CTC_TPU_LSTM_IMPL", impl)
-        monkeypatch.setenv("LSTM_CTC_TPU_STORE_DTYPE", "float32")
-
-        def loss(p):
-            logits, _, _, new_state = apply_model(
-                p, state, x, seq, config, train=True)
-            return jnp.sum(logits * logits), (logits, new_state)
-
-        (val, (logits, new_state)), grads = jax.value_and_grad(
-            loss, has_aux=True)(params)
-        return val, logits, new_state, grads
-
-    val_s, logits_s, st_s, g_s = run("scan")
-    val_p, logits_p, st_p, g_p = run("pallas")
-    np.testing.assert_allclose(np.asarray(logits_p),
-                               np.asarray(logits_s),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(st_p["bn"][0]["mean"]), np.asarray(st_s["bn"][0]["mean"]),
-        rtol=1e-5, atol=1e-6)
-    for a, b in zip(jax.tree_util.tree_leaves(g_p),
-                    jax.tree_util.tree_leaves(g_s)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=2e-5)
 
 
 def test_lstm_bn_fold_matches_materializing_path(monkeypatch):

@@ -205,79 +205,6 @@ def test_nonconforming_slot_count_falls_back_to_flat_gather():
                                rtol=1e-5)
 
 
-def test_packed_fused_kernel_matches_scan(monkeypatch):
-    """The Pallas kernel's reset path (interpret mode, f32 remat) must
-    reproduce the scan's packed outputs and gradients."""
-    monkeypatch.setenv("LSTM_CTC_TPU_STORE_DTYPE", "float32")
-
-    feats, labels = make_utts(seed=7)
-    params, net_state = init_model(jax.random.PRNGKey(2), CONFIG)
-    packed = packed_batch(feats, labels)
-
-    def loss_of(p, impl):
-        monkeypatch.setenv("LSTM_CTC_TPU_LSTM_IMPL", impl)
-        metrics, _, _ = compute_losses(p, net_state, packed, CONFIG,
-                                       train=False)
-        return metrics["eval_loss"]
-
-    # separate traces per impl (the env var is read at trace time)
-    l_scan, g_scan = jax.value_and_grad(
-        lambda p: loss_of(p, "scan"))(params)
-    l_fused, g_fused = jax.value_and_grad(
-        lambda p: loss_of(p, "pallas"))(params)
-    np.testing.assert_allclose(float(l_fused), float(l_scan), rtol=1e-5)
-    for (path, a), (_, b) in zip(
-            jax.tree_util.tree_leaves_with_path(g_fused),
-            jax.tree_util.tree_leaves_with_path(g_scan)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-4, atol=2e-5,
-                                   err_msg=str(path))
-
-
-def test_packed_fused_final_states_match_scan():
-    """Padded-tail steps (time_block rounding) must NOT reset the
-    carried (c, h): the fused kernel's returned final states must equal
-    the scan path's, which preserves the carry past sequence_length."""
-    from lstm_ctc_tpu.models.cells import bilstm_dual_scan, reverse_segments
-    from lstm_ctc_tpu.ops.lstm_pallas import (
-        _auto_time_block, bilstm_dual_scan_fused)
-
-    rng = np.random.RandomState(9)
-    B, T, D, H, P = 2, 16, 6, 10, 8
-    assert _auto_time_block(B) > T  # the pad tail actually exists
-
-    def mk():
-        return {
-            "wx": jnp.asarray(rng.randn(D, 4 * H).astype(np.float32) * .3),
-            "wh": jnp.asarray(rng.randn(P, 4 * H).astype(np.float32) * .3),
-            "bias": jnp.asarray(rng.randn(4 * H).astype(np.float32) * .1),
-            "proj": jnp.asarray(rng.randn(H, P).astype(np.float32) * .3),
-            "w_i_diag": jnp.asarray(rng.randn(H).astype(np.float32) * .1),
-            "w_f_diag": jnp.asarray(rng.randn(H).astype(np.float32) * .1),
-            "w_o_diag": jnp.asarray(rng.randn(H).astype(np.float32) * .1),
-        }
-
-    fw, bw = mk(), mk()
-    x = jnp.asarray(rng.randn(B, T, D).astype(np.float32))
-    seq = jnp.asarray([12, 16], jnp.int32)
-    reset = np.zeros((B, T), np.float32)
-    reset[0, [0, 7]] = 1.0
-    reset[1, [0, 9]] = 1.0
-    reset = jnp.asarray(reset)
-    x_rev = reverse_segments(x, seq, reset)
-
-    _, _, (fw_s, bw_s) = bilstm_dual_scan(
-        fw, bw, x, x_rev, seq, forget_bias=5.0, reset_mask=reset)
-    _, _, (fw_f, bw_f) = bilstm_dual_scan_fused(
-        fw, bw, x, x_rev, seq, forget_bias=5.0, store_dtype="float32",
-        interpret=True, reset_mask=reset)
-    for (c_s, h_s), (c_f, h_f) in [(fw_s, fw_f), (bw_s, bw_f)]:
-        np.testing.assert_allclose(np.asarray(c_f), np.asarray(c_s),
-                                   rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(np.asarray(h_f), np.asarray(h_s),
-                                   rtol=2e-5, atol=2e-5)
-
-
 def test_batcher_packs_all_utterances():
     """batch_plan(-1) covers every utterance exactly once and assemble
     reproduces each utterance's features at its packed offset."""
@@ -338,8 +265,7 @@ def test_batcher_packs_all_utterances():
 
 def test_tiered_gather_is_opt_in(monkeypatch):
     """The tiered CTC gather must stay OFF unless asked (env or config) —
-    it measured as a wash on v5e (docs/BENCHMARKS.md round 3), so the
-    simpler full-width view is the shipped default.  The gate is resolved
+    the simpler full-width view is the shipped default.  The gate is resolved
     where the gather is built (train/graph.ctc_tiered_enabled), with no
     batcher-side config mutation."""
     from lstm_ctc_tpu.train.graph import ctc_tiered_enabled
@@ -423,7 +349,7 @@ def test_undeclared_contract_falls_back_to_flat_gather():
     gather, i.e. the exact unpacked loss, unless the config DECLARES
     the rank-major contract.  Before the gate, such a batch silently
     got the row-batched gather, whose out-of-row rebased indices clip
-    into the wrong rows (ADVICE r4, train/graph.compute_losses)."""
+    into the wrong rows (train/graph.compute_losses)."""
     feats, labels = make_utts(seed=8)
     params, net_state = init_model(jax.random.PRNGKey(3), CONFIG)
     packed = packed_batch(feats, labels)

@@ -97,130 +97,42 @@ def test_indivisible_batch_replicates():
     assert device_batch["nnet_input"].sharding.spec == P()
 
 
-def test_sharded_fused_kernel_matches_scan(monkeypatch):
-    """The fused Pallas kernel under shard_map (the multi-device fast
-    path) must match the XLA-scan DP step: same loss, same updated
-    params.  Runs interpret-mode Pallas on the virtual CPU mesh with f32
-    remat storage for scan-precision tolerances."""
-    monkeypatch.setenv("LSTM_CTC_TPU_STORE_DTYPE", "float32")
-
+@pytest.mark.parametrize("family", [
+    {"nnet_type": "lstm", "num_neurons": 12, "num_projects": 6},
+    {"nnet_type": "lstm", "num_layers": 3, "num_neurons": 16,
+     "num_projects": 8, "use_bn": True},
+    {"nnet_type": "cudnnlstm", "num_neurons": 12, "num_projects": 0,
+     "use_peepholes": False},
+], ids=["lstm", "lstm_bn_3layer", "cudnnlstm"])
+def test_sharded_unidirectional_step_matches_single_device(family):
+    """The unidirectional families' DP train step on the mesh equals the
+    single-device step: same loss, same updated params (two steps)."""
     mesh = get_mesh()
-    config = dict(CONFIG, mesh=mesh)
-    batch = make_batch()
-    params, net_state = init_model(jax.random.PRNGKey(0), config)
-    params = jax.tree.map(np.asarray, params)
-    rng = jax.random.PRNGKey(7)
-    replicated = NamedSharding(mesh, P())
-
-    def run(impl):
-        monkeypatch.setenv("LSTM_CTC_TPU_LSTM_IMPL", impl)
-        # fresh train step per impl: the env var is read at trace time
-        init_opt, train_step = make_train_step(config, learn_rate=1e-2,
-                                               optimizer="adam")
-        p = jax.device_put(params, replicated)
-        o = init_opt(p)
-        s = jax.device_put(net_state, replicated)
-        for _ in range(2):
-            p, o, s, m = train_step(p, o, s,
-                                    jax.device_put(rng, replicated),
-                                    shard_batch(mesh, batch))
-        return p, m
-
-    p_scan, m_scan = run("scan")
-    p_fused, m_fused = run("pallas")
-
-    np.testing.assert_allclose(float(m_scan["eval_loss"]),
-                               float(m_fused["eval_loss"]), rtol=1e-5)
-    for (_, a), (_, b) in zip(
-            jax.tree_util.tree_leaves_with_path(p_scan),
-            jax.tree_util.tree_leaves_with_path(p_fused)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=2e-5)
-
-
-def test_sharded_unidirectional_fused_matches_scan(monkeypatch):
-    """lstm_scan_sharded (the lstm/cudnnlstm multi-device fast path)
-    must match the XLA-scan DP step."""
-    monkeypatch.setenv("LSTM_CTC_TPU_STORE_DTYPE", "float32")
-
-    mesh = get_mesh()
-    config = dict(CONFIG, nnet_type="lstm", mesh=mesh,
-                  input_dim=6, num_neurons=12, num_projects=6)
+    config = dict(CONFIG, mesh=mesh, **family)
     batch = make_batch()
     params, net_state = init_model(jax.random.PRNGKey(3), config)
     params = jax.tree.map(np.asarray, params)
+    net_state = jax.tree.map(np.asarray, net_state)
     rng = jax.random.PRNGKey(9)
-    replicated = NamedSharding(mesh, P())
 
-    def run(impl):
-        monkeypatch.setenv("LSTM_CTC_TPU_LSTM_IMPL", impl)
+    def run(sharding, put_batch):
         init_opt, train_step = make_train_step(config, learn_rate=1e-2,
                                                optimizer="adam")
-        p = jax.device_put(params, replicated)
+        p = jax.device_put(params, sharding)
         o = init_opt(p)
-        s = jax.device_put(net_state, replicated)
+        s = jax.device_put(net_state, sharding)
         for _ in range(2):
-            p, o, s, m = train_step(p, o, s,
-                                    jax.device_put(rng, replicated),
-                                    shard_batch(mesh, batch))
+            p, o, s, m = train_step(p, o, s, jax.device_put(rng, sharding),
+                                    put_batch(batch))
         return p, m
 
-    p_scan, m_scan = run("scan")
-    p_fused, m_fused = run("pallas")
-    np.testing.assert_allclose(float(m_scan["eval_loss"]),
-                               float(m_fused["eval_loss"]), rtol=1e-5)
-    for (_, a), (_, b) in zip(
-            jax.tree_util.tree_leaves_with_path(p_scan),
-            jax.tree_util.tree_leaves_with_path(p_fused)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   atol=2e-5)
-
-
-def test_sharded_stack_wavefront_matches_scan(monkeypatch):
-    """lstm_stack_sharded (the whole-stack wavefront kernel under
-    shard_map) must match the XLA-scan DP step.  num_projects != input
-    dim so the stack path is eligible (no layer-0 residual)."""
-    monkeypatch.setenv("LSTM_CTC_TPU_STORE_DTYPE", "float32")
-
-    mesh = get_mesh()
-    config = dict(CONFIG, nnet_type="lstm", mesh=mesh, num_layers=3,
-                  input_dim=6, num_neurons=16, num_projects=8)
-    batch = make_batch()
-    params, net_state = init_model(jax.random.PRNGKey(5), config)
-    params = jax.tree.map(np.asarray, params)
-    rng = jax.random.PRNGKey(11)
-    replicated = NamedSharding(mesh, P())
-
-    calls = {}
-    import lstm_ctc_tpu.ops.lstm_stack_pallas as sp
-    orig = sp.lstm_stack_sharded
-
-    def spy(*a, **kw):
-        calls["hit"] = True
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(sp, "lstm_stack_sharded", spy)
-
-    def run(impl):
-        monkeypatch.setenv("LSTM_CTC_TPU_LSTM_IMPL", impl)
-        init_opt, train_step = make_train_step(config, learn_rate=1e-2,
-                                               optimizer="adam")
-        p = jax.device_put(params, replicated)
-        o = init_opt(p)
-        s = jax.device_put(net_state, replicated)
-        for _ in range(2):
-            p, o, s, m = train_step(p, o, s,
-                                    jax.device_put(rng, replicated),
-                                    shard_batch(mesh, batch))
-        return p, m
-
-    p_scan, m_scan = run("scan")
-    p_fused, m_fused = run("pallas")
-    assert calls.get("hit"), "wavefront stack kernel was not dispatched"
-    np.testing.assert_allclose(float(m_scan["eval_loss"]),
-                               float(m_fused["eval_loss"]), rtol=1e-5)
-    for (_, a), (_, b) in zip(
-            jax.tree_util.tree_leaves_with_path(p_scan),
-            jax.tree_util.tree_leaves_with_path(p_fused)):
+    one = jax.devices()[0]
+    p_one, m_one = run(one, lambda b: jax.device_put(b, one))
+    p_dp, m_dp = run(NamedSharding(mesh, P()),
+                     lambda b: shard_batch(mesh, b))
+    np.testing.assert_allclose(float(m_dp["eval_loss"]),
+                               float(m_one["eval_loss"]), rtol=1e-5)
+    for a, b in zip(jax.tree_util.tree_leaves(p_one),
+                    jax.tree_util.tree_leaves(p_dp)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    atol=2e-5)
